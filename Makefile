@@ -3,7 +3,7 @@
 #   make check    — full test suite, one pytest process per test file
 #                   (see run_tests.sh for why isolation is required)
 #   make native   — build the native C++ IO helper library
-#   make bench    — run the single-chip benchmark (needs a TPU or CPU JAX)
+#   make bench    — run the single-GPU benchmark (needs a GPU)
 
 .PHONY: check native bench
 

@@ -10,11 +10,13 @@ area dominate.
 Usage: python examples/layout_probe.py [--mb 2.0]
 """
 import argparse
+import os
 import sys
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
 from femto_tpu.suffix import suffix_array_np  # noqa: E402
 from femto_tpu.io.corpus import iter_files    # noqa: E402
@@ -344,7 +346,7 @@ def main():
         ["/root/reference/src"], (".c", ".h", ".cc", ".hh", ".txt",
                                   ".chpl", ".l", ".y"), nb)
     corpora["repo(py+md)"] = read_text_corpus(
-        ["/root/repo/femto_tpu", "/root/repo/tests"],
+        [os.path.join(REPO, "femto_tpu"), os.path.join(REPO, "tests")],
         (".py", ".md"), nb)
     prose = read_text_corpus(
         ["/usr/lib/python3.11", "/usr/lib/python3"],

@@ -1,12 +1,13 @@
-"""Serving-size probe on REAL text (VERDICT r3 item #2a): feed genuine
+"""Serving-size probe on REAL text: feed genuine
 code/prose corpora (this repo's sources + the reference's C sources read
 as opaque text) through the normal loader and measure B/char per tier,
 with a per-array breakdown.  Sizes are data properties, so this runs on
-the CPU backend (same accounting as PERF.md round 3's synthetic table).
+the CPU backend.
 
 Usage: python examples/size_probe_real.py [--seg 256,512] [--tiers packed,vseg]
 """
 import argparse
+import os
 import sys
 
 import numpy as np
@@ -64,16 +65,16 @@ def main():
     corpora["ref-src(code)"] = prepared
     log(f"ref-src: {prepared.n/1e6:.2f}M symbols, {prepared.num_docs} docs")
 
-    repo_files = iter_files(["/root/repo/femto_tpu", "/root/repo/tests",
-                             "/root/repo/PERF.md", "/root/repo/SURVEY.md",
-                             "/root/repo/README.md"])
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    repo_files = iter_files([os.path.join(repo, p) for p in (
+        "femto_tpu", "tests", "PERF.md", "SURVEY.md", "README.md")])
     prepared2 = read_corpus(repo_files,
                             max_bytes=int(args.max_mb * (1 << 20)))
     corpora["repo(py+md)"] = prepared2
     log(f"repo: {prepared2.n/1e6:.2f}M symbols, {prepared2.num_docs} docs")
 
-    # genuine English prose: UNIQUE docstring/pydoc text (corpus_real —
-    # ~18 MiB available; never tiled, so BWT runs are honest)
+    # genuine English prose: UNIQUE docstring/pydoc text (corpus_real;
+    # never tiled, so BWT runs are honest)
     try:
         from corpus_real import english_prose
 
@@ -85,7 +86,7 @@ def main():
         pass
 
     # DNA (uniform ACGT) + zipf-English synthetics for comparability with
-    # the PERF.md round-3 table
+    # the synthetic corpora of earlier size tables
     rng = np.random.default_rng(7)
     nmb = int(min(args.max_mb, 4.0) * (1 << 20))
     acgt = np.frombuffer(b"ACGT", np.uint8)

@@ -1,11 +1,11 @@
-"""femto_tpu: a TPU-native compressed-text-indexing and search framework.
+"""femto_tpu: a compressed-text indexing and search framework in JAX.
 
 Capabilities of femto-dev/femto (FM-index construction + count/locate/
-document/regex/approximate/Boolean queries), re-architected for TPU:
-suffix sort and BWT as XLA sort/scan passes, rank/Occ as batched
-segment-checkpoint lookups (with Pallas kernels on the hot path), queries as
-lockstep batched scans, and multi-chip scaling via jax.sharding meshes with
-ICI collectives in place of MPI pipes.
+document/regex/approximate/Boolean queries), re-architected for an
+accelerator: suffix sort and BWT as XLA sort/scan passes, rank/Occ as
+batched segment-checkpoint lookups, queries as lockstep batched scans, and
+multi-device scaling via jax.sharding meshes with collectives in place of
+MPI pipes.
 """
 
 from .alphabet import (

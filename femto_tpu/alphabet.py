@@ -1,4 +1,4 @@
-"""Alphabet and document preparation for the TPU-native FM-index.
+"""Alphabet and document preparation for the FM-index.
 
 Mirrors the *semantics* of the reference's 261-symbol alphabet
 (/root/reference/src/main/index_types.h:35-71): 256 byte values shifted up by
@@ -6,7 +6,7 @@ CHARACTER_OFFSET, below which sit reserved escape symbols.  The reference uses
 escape value 0 (must be smallest so that escape+EOF is the minimal string,
 index_types.h:36-39) and codes EOF/SEOF/SOH/EOH; we reserve the same five
 code points so patterns containing header-section escapes remain expressible,
-but our *prepared text* layout is TPU-native: documents are concatenated with
+but our *prepared text* layout is array-native: documents are concatenated with
 a single SEOF terminator symbol per document (no 9-char trailer to strip as
 in block_format.txt:1-15) and document ids are kept in dense side arrays
 instead of being spliced into the text.

@@ -7,7 +7,7 @@ FindUnique (minimal unique substrings per position, FindUnique.chpl),
 ExtractUniqueKmers, and SuffixSimilarity (block-LCP common-substring
 scoring, SuffixSimilarity.chpl).
 
-The TPU LCP is NOT Kasai's sequential pass: all pairs (suffix, SA
+The device LCP is NOT Kasai's sequential pass: all pairs (suffix, SA
 predecessor) are compared in parallel with geometrically growing windows
 and lane compaction — a lane leaves after its first mismatching window, so
 total work is O(sum of LCP values / window) with O(log maxLCP) rounds.

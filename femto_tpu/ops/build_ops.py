@@ -7,9 +7,9 @@ accelerator right after the suffix sort, so "build" stays on-device from raw
 text to queryable index.
 
 The assembly is split into several small jitted stages (BWT, occ, marks,
-ISA) instead of one fused graph: the deployment environment compiles
-remotely and very large fused graphs have pathological compile times, while
-the stages compile in seconds and the intermediate arrays stay on device.
+ISA) instead of one fused graph: very large fused graphs compile slowly,
+while the stages compile in seconds and the intermediate arrays stay on
+device.
 """
 
 from __future__ import annotations
@@ -84,8 +84,8 @@ def build_sa_payload(text, doc_starts, *, n, mark_period, ndocs):
 
     payload[p] = text[p-1 mod n] | aux[p] << 9, so suffix_array's
     pull[r] = payload[sa[r]] = (BWT symbol, mark/SEOF aux of row r) — the
-    O(n) random gather of _bwt_aux_stage carried by the sort for free
-    (PERF.md round 2: sort payload operands are free)."""
+    O(n) random gather of _bwt_aux_stage carried by the sort as one more
+    payload operand."""
     aux = _aux_positions(doc_starts, n=n, mark_period=mark_period,
                          ndocs=ndocs)
     packed = text.astype(jnp.int32) | (jnp.roll(aux, -1) << 9)
@@ -112,8 +112,7 @@ def _bwt_aux_stage(text, sa, doc_starts, *, n, n_pad, mark_period, ndocs):
     packed[p] = text[p] | aux[p+1 mod n] << 9, so gathering at
     prev = sa-1 (mod n) yields BWT[r] = text[sa[r]-1] in the low bits and
     aux[sa[r]] (the row's mark/SEOF info) in the high bits — halving the
-    random-access passes of the build (gather issue rate is the packaging
-    floor, PERF.md)."""
+    random-access passes of the build."""
     aux = _aux_positions(doc_starts, n=n, mark_period=mark_period,
                          ndocs=ndocs)
     packed = text.astype(jnp.int32) | (jnp.roll(aux, -1) << 9)
@@ -126,43 +125,22 @@ def _bwt_aux_stage(text, sa, doc_starts, *, n, n_pad, mark_period, ndocs):
     return bwt, bwt_chars, a_row
 
 
-def _hist_core(b3, alpha: int):
-    """MXU per-segment histogram of chunked symbol rows.
-
-    b3: int32[nchunks, CH, seg] (pad symbols -1 count nothing); returns
-    int32[nchunks*CH, alpha].  Split the symbol c = hi*32 + lo (hi <
-    ceil(alpha/32), lo < 32) and contract the two narrow one-hot planes per
-    segment — per_seg[s, hi, lo] = sum_r (hi_r==hi)(lo_r==lo) is one
-    [seg,NHI]^T @ [seg,32] matmul per segment.  This replaces the
-    alpha-wide VPU compare-reduce (n*alpha lanes) with n*(NHI+32) one-hot
-    lanes + an MXU contraction; exact in f32 (0/1 inputs, counts <= seg).
-    Chunked via lax.map so the one-hot planes never materialize at O(n)."""
-    NHI = -(-alpha // 32)
-    CH = b3.shape[1]
-
-    def chunk(bc):
-        hi = bc >> 5   # pad rows are -1: hi==-1 matches no plane lane
-        lo = bc & 31
-        A = (hi[:, :, None] == jnp.arange(NHI)[None, None, :]).astype(
-            jnp.bfloat16)
-        Bm = (lo[:, :, None] == jnp.arange(32)[None, None, :]).astype(
-            jnp.bfloat16)
-        ps = jnp.einsum(
-            "sri,srj->sij", A, Bm, preferred_element_type=jnp.float32
-        )
-        return ps.reshape(CH, NHI * 32)[:, :alpha].astype(jnp.int32)
-
-    return jax.lax.map(chunk, b3).reshape(-1, alpha)
+def seg_hist(codes2d, alpha: int):
+    """Per-segment symbol histogram int32[n_seg, alpha] of int32[n_seg,
+    seg] symbol rows, by one scatter-add.  Symbols outside [0, alpha)
+    (the -1 pads, INVALID_ALPHA in a narrower alphabet) count nothing."""
+    rows = jax.lax.broadcasted_iota(jnp.int32, codes2d.shape, 0)
+    cols = jnp.where((codes2d >= 0) & (codes2d < alpha), codes2d, alpha)
+    return jnp.zeros((codes2d.shape[0], alpha), jnp.int32).at[
+        rows, cols].add(1, mode="drop")
 
 
 @functools.partial(jax.jit, static_argnames=("n_seg", "seg", "alpha"))
 def _hist_stage(bwt_chars, *, n_seg, seg, alpha=ALPHA_SIZE):
-    """Per-segment symbol histogram int32[n_seg, alpha] (see _hist_core)."""
-    CH = 2048
-    nchunks = -(-n_seg // CH)
-    b2 = jnp.full((nchunks * CH * seg,), -1, jnp.int32)
+    """Per-segment symbol histogram int32[n_seg, alpha] (see seg_hist)."""
+    b2 = jnp.full((n_seg * seg,), -1, jnp.int32)
     b2 = jax.lax.dynamic_update_slice(b2, bwt_chars, (0,))
-    return _hist_core(b2.reshape(nchunks, CH, seg), alpha)[:n_seg]
+    return seg_hist(b2.reshape(n_seg, seg), alpha)
 
 
 @functools.partial(jax.jit, static_argnames=("compact", "group"))
@@ -212,7 +190,7 @@ def _stats_from_hist(per_seg_used, *, SMAX):
     """Per-segment sorted distinct codes from the dense histogram the
     checkpoint stage already computed: presence -> rank -> scatter of the
     column index.  Replaces the O(n) per-segment sort of
-    _vseg_stats_stage (673 ms -> ~10 ms at 128 MiB, PERF.md round 4).
+    _vseg_stats_stage with O(n_seg * K) work.
     Returns (syms int32[n_seg, SMAX] (pad = 2^20), nsym int32[n_seg],
     255 sentinel for > SMAX)."""
     PAD = 1 << 20
@@ -318,10 +296,8 @@ def _vseg_pack_uniform(codes2d, syms, nsym, *, seg, w, SMAX, side):
 
 @functools.partial(jax.jit, static_argnames=("n", "n_seg", "seg"))
 def _codes2d_stage(bwt_chars, used, *, n, n_seg, seg):
-    """Dense global codes reshaped to [n_seg, seg]; tail pad > 2^20.
-    The symbol->code map is the _map_codes compare-reduce (a table
-    gather over [n] measured 1.3 s/128 MiB, PERF.md round 4)."""
-    codes = _map_codes(bwt_chars, used)
+    """Dense global codes reshaped to [n_seg, seg]; tail pad > 2^20."""
+    codes = map_codes(bwt_chars, used)
     full = jnp.full((n_seg * seg,), (1 << 20) + 7, jnp.int32)
     full = jax.lax.dynamic_update_slice(full, codes, (0,))
     return full.reshape(n_seg, seg)
@@ -384,9 +360,8 @@ def _build_vseg(bwt_chars, per_seg_used, used, mark_bits, mark_ckpt,
                 *, n, n_seg, seg):
     """Assemble the vseg v2 tier arrays.
 
-    Layout (shaped by the round-3 TPU measurements — gather cost is per
-    issued ROW, so the serving tier must minimize both row size and the
-    NUMBER of gather streams per rank):
+    Layout (a gather's cost is per issued ROW, so the serving tier
+    minimizes both row size and the NUMBER of gather streams per rank):
 
       * main: uint32[n_seg, W + Wsym + seg/32 + 1 + ceil(K/2)] — per
         row: the segment's codes at ONE width w_main (argmin over
@@ -401,7 +376,7 @@ def _build_vseg(bwt_chars, per_seg_used, used, mark_bits, mark_ckpt,
         8-9 bits, GLOBAL dense codes, row 0 a dummy (gathered via
         lax.cond only when a lane touches an overflow segment);
       * checkpoints: the compact scheme (uint16 relative + int32 L1 group
-        rows) — measured SAME bytes as int8 interpolation at L1_GROUP=16
+        rows) — the same bytes as int8 interpolation at L1_GROUP=16
         but one gather stream fewer per rank;
       * seg_woff int32[n_seg]: 1-based side row, 0 = main; seg_nsym
         uint8[n_seg] (255 = overflow/identity); seg_syms is a [1, SMAX]
@@ -489,7 +464,7 @@ def _vrle_ws(nsym):
             + (n > 32)).astype(jnp.int32)
 
 
-# Sub-byte slot geometry (round 5, VERDICT r4 #3a): per-segment slot
+# Sub-byte slot geometry: per-segment slot
 # width from {6, 8, 10} bits instead of fixed u8 — w_slot and lenbits
 # are FUNCTIONS of the segment's symbol width w_s, so no extra storage:
 #   w_s 1-2 -> 6-bit slots, w_s 3-4 -> 8-bit, w_s 5-6 -> 10-bit;
@@ -606,7 +581,7 @@ def _vrle_pack_slots(codes2d, syms, nsym, *, seg, SMAX, A_words):
         # a slot ends at the NEXT slot start (run breaks and maxlen
         # multiples are both slot starts, so lengths stay <= maxlen):
         # suffix-min of slot-start positions, shifted left — no run-length
-        # scatter and no in-row gather (3.2 s -> ~0.1 s at 128 MiB)
+        # scatter and no in-row gather
         idxs = jnp.where(is_slot, iota, seg)
         sm = jnp.flip(jax.lax.cummin(jnp.flip(idxs, axis=1), axis=1),
                       axis=1)
@@ -702,10 +677,9 @@ def _build_vrle(bwt_chars, per_seg_used, used, mark_bits, mark_ckpt,
                 *, n, n_seg, seg):
     """Assemble the vrle tier: the vseg serving shape (ONE uniform main
     row per segment gathered per rank/walk step) with a RUN-LENGTH coded
-    code area — the TPU-shaped answer to the reference's RLE-gamma bseq
+    code area — the fixed-row answer to the reference's RLE-gamma bseq
     compression (wtree.c:359-770), which fixed-width rows cannot match
-    on real text (BWT mean run length 3.5-4.2 measured on code/prose,
-    PERF.md round 4).
+    on real text (BWT mean run length 3.5-4.2 on code/prose).
 
     Main row: [code area A_words | symbol list | mark words | mark ckpt |
     uint16-relative occ ckpts].  Per segment the code area holds EITHER
@@ -766,8 +740,8 @@ def _build_vrle(bwt_chars, per_seg_used, used, mark_bits, mark_ckpt,
         bits_np = slots_np.astype(np.int64) * w_slot_np
         cwords = (-(-bits_np[cont_idx] // 32) - A_words).astype(np.int64)
         # GRANULE alignment: offsets are multiples of VRLE_CONT_G words
-        # so serving fetches whole granule ROWS (a [B, ngr] row gather —
-        # an element-level window gather measured ~6x slower serving)
+        # so serving fetches whole granule ROWS (a [B, ngr] row gather
+        # instead of an element-level window gather)
         G = VRLE_CONT_G
         cw_al = (-(-cwords // G)) * G
         offs = np.zeros(ncont + 1, np.int64)
@@ -895,26 +869,17 @@ def _pack_widths(K: int):
     return per_word, bits
 
 
-def _map_codes(x, used):
-    """Symbols -> dense codes by chunked compare-reduce: code(x) =
-    #used symbols < x (used is sorted unique and x is always present).
+CODE_TABLE = 512  # symbols (BWT codes, INVALID_ALPHA included) are < 512
 
-    A 512-entry table gather over [n] measured 1.3 s/128 MiB on the TPU
-    (gathers issue ~element-at-a-time); this compare-sum is pure VPU work
-    over [CH, K] lanes and runs ~25x faster (PERF.md round 4)."""
-    K = used.shape[0]
-    n = x.shape[0]
-    CH = max(1 << 20, 1)
-    nch = -(-n // CH)
-    xp = jnp.zeros((nch * CH,), x.dtype)
-    xp = jax.lax.dynamic_update_slice(xp, x, (0,))
 
-    def chunk(xc):
-        return jnp.sum(
-            (used[None, :] < xc[:, None]).astype(jnp.int32), axis=1)
-
-    codes = jax.lax.map(chunk, xp.reshape(nch, CH)).reshape(-1)
-    return codes[:n]
+def map_codes(x, used):
+    """Symbols -> dense codes, code(x) = #used symbols < x (used is sorted
+    unique, so a present symbol maps to its index in used), by one gather
+    from a CODE_TABLE-entry table."""
+    table = jnp.searchsorted(
+        used, jnp.arange(CODE_TABLE, dtype=used.dtype), side="left"
+    ).astype(jnp.int32)
+    return jnp.take(table, x, mode="clip")
 
 
 @functools.partial(
@@ -924,7 +889,7 @@ def _pack_stage(bwt_chars, used, *, n, n_seg, seg, per_word, bits):
     """Map BWT symbols to dense codes and bit-pack them into uint32 words,
     per segment (W = ceil(seg/per_word) words each)."""
     pad_code = (1 << bits) - 1
-    codes = _map_codes(bwt_chars, used)               # [n] dense codes
+    codes = map_codes(bwt_chars, used)                # [n] dense codes
     W = -(-seg // per_word)
     row = W * per_word
     out = jnp.full((n_seg * row,), pad_code, jnp.int32)
@@ -969,13 +934,10 @@ def _mark_rank_select(mark_bits, n_marks, cap: int, n_limit: int):
     groups resolve by max) + a cummax fill.  Each rank then pulls ONE
     fused [ckpt | 8 words] row and refines in-register: an 8-word
     popcount prefix picks the word, a 5-step in-word binary search picks
-    the bit.  Gather rows are the budget here (flat cost per row 4-512B,
-    PERF.md): the fused row replaces the previous word-level design's two
-    4B streams (word_ckpt[w] + words[w]) with one stream, and the scatter
-    shrinks 8x — measured ~2x on the whole select at n=16.8M.
-    searchsorted alternatives are ~log2(n/32) gather passes over cap
-    lanes; the n-row byte-key sort this machinery replaced cost 0.50 s of
-    the 0.65 s packaging at 96 MiB (PERF.md round 2)."""
+    the bit.  The fused row serves one gather stream where a word-level
+    design needs two (word_ckpt[w] + words[w]), and the scatter shrinks
+    8x.  searchsorted alternatives are ~log2(n/32) gather passes over cap
+    lanes, and the n-row byte-key sort this machinery replaced was O(n)."""
     words_flat = mark_bits.reshape(-1)                  # [n_words] uint32
     nw = int(words_flat.shape[0])
     G = _RS_GROUP
@@ -1038,11 +1000,9 @@ def _marks_finish(sa, a_row, *, n, n_pad, seg, cap, ndocs, mark_period=1):
     The mark-value compaction is RANK-SELECT, not a sort: for each mark
     rank g < cap, searchsorted over mark_ckpt finds its segment, then a
     word-level popcount scan + 5-step in-word binary search select its
-    row — all cap-row (~n/mark_period) ops, no O(n) sort or scatter
-    (the n-row byte-key sort this replaces was 0.50 s of the 0.65 s
-    packaging at 96 MiB).  Per-doc SEOF rows come from the selected rows'
-    tags (every SEOF row is marked when sampling is on,
-    index_types.h:134-144).  mark_period==0 keeps a sort-based path (its
+    row — all cap-row (~n/mark_period) ops, no O(n) sort or scatter.
+    Per-doc SEOF rows come from the selected rows' tags (every SEOF row is
+    marked when sampling is on, index_types.h:134-144).  mark_period==0 keeps a sort-based path (its
     SEOF rows are unmarked; cap is tiny there)."""
     n_seg = n_pad // seg
     W = seg // 32
@@ -1147,9 +1107,8 @@ def _pack_mark_vals(mark_vals, *, cap, bits, exc_base, exc_cap, period,
     k = jnp.where(valid, k, 0).astype(jnp.uint32)
     # register bit-transpose: 32 consecutive slots span exactly `bits`
     # words (32 * bits bits), so each group packs with STATIC shifts and
-    # static column updates — no scatter (the cap-wide scatter-add
-    # measured 206 ms/128 MiB, PERF.md round 4).  cap is a multiple of
-    # 128, so the group reshape is exact.
+    # static column updates — no cap-wide scatter-add.  cap is a
+    # multiple of 128, so the group reshape is exact.
     G = cap // 32
     kg = k.reshape(G, 32)
     acc = jnp.zeros((G, bits), jnp.uint32)
@@ -1232,7 +1191,7 @@ def build_fm_arrays_device(
     alpha: optional host array covering every symbol the BWT can contain
     (supersets fine; shape-padded builds must include the pad symbol 0) —
     the remapped tiers then skip the device histogram's host counts
-    round-trip (measured 11 s/chunk of pipeline stall, PERF.md)."""
+    round-trip, which would stall a chunked build's pipeline."""
     from ..alphabet import ALPHA_SIZE as A
     from ..fmindex import l1_group_for
 
@@ -1298,10 +1257,8 @@ def build_fm_arrays_device(
         alpha_map = jnp.asarray(alpha_map_np)
         alpha_rev = jnp.asarray(used)
         if per_seg_used is None:
-            # 512-wide MXU histogram, used-columns selected ON DEVICE (a
-            # K-column histogram over pre-mapped codes measured SLOWER —
-            # the 2-plane einsum lowers worse than the 16-plane one); the
-            # host-alpha path's win is skipping the counts round-trip
+            # alphabet-wide histogram, used columns selected on device;
+            # the host-alpha path's win is skipping the counts round-trip
             per_seg = _hist_stage(bwt_chars, n_seg=n_seg, seg=seg, alpha=A)
             per_seg_used = jnp.take(per_seg, jnp.asarray(used), axis=1)
         if tier in ("vseg", "vrle"):

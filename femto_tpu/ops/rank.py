@@ -1,16 +1,15 @@
 """Batched rank (Occ) queries over the segment-checkpointed BWT.
 
-This is the hot primitive of the whole framework — the TPU replacement for
+This is the hot primitive of the whole framework — the array replacement for
 the reference's wavelet-tree walk + RLE-gamma bitvector scan
 (/root/reference/src/main/wtree.c:635 bseq_rank, index.c:2037-2090).  One
 rank(c, r) is: a scalar checkpoint gather + a SEG-wide vectorized
 compare-and-count of the row's segment.  Batched over thousands of queries it
-is two gathers and one VPU reduction — no per-query control flow.
+is two gathers and one vector reduction — no per-query control flow.
 
-Design note: this gather-bound loop is intentionally NOT a Pallas kernel —
-XLA's native gather lowering pipelines concurrent gather streams better
-than per-query manual DMA could (measured; see PERF.md "Rank kernel design
-space").
+Design note: this gather-bound loop is plain JAX left to XLA; whether a
+hand-written rank kernel pays on the GPU is an open measurement
+(ROADMAP speed item 7).
 """
 
 from __future__ import annotations
@@ -235,7 +234,7 @@ def _vseg_marks_from_row(arrays: FMArrays, row: jax.Array, r: jax.Array):
 def _decode_static(words: jax.Array, w: int, seg: int) -> jax.Array:
     """[B, W] words at STATIC width w -> int32[B, seg] codes.  The word
     select uses constant indices (a broadcast/slice, not a data gather),
-    so decode is pure VPU work."""
+    so decode is pure vector work."""
     per_word = 32 // w
     pos = np.arange(seg)
     widx = jnp.asarray((pos // per_word).astype(np.int32))
@@ -258,7 +257,7 @@ def _count_eq_packed(words: jax.Array, w: int, lq: jax.Array,
     [B, seg] code grid.  Per word: XOR with the replicated query code,
     OR-reduce each field onto its LSB (shift reach capped at w-1 so
     fields never contaminate a neighbor's LSB), mask to the off-prefix,
-    popcount.  ~3x fewer VPU ops than the grid compare and 32/w x less
+    popcount.  ~3x fewer vector ops than the grid compare and 32/w x less
     intermediate data — the decode was the row tiers' serving bottleneck
     at seg >= 1024.  lq outside [0, 2^w) counts nothing."""
     per = 32 // w
@@ -375,8 +374,7 @@ def _vrle_slots_from_row(arrays: FMArrays, row: jax.Array, s: jax.Array,
     """(lsym, slen, starts) int32[B, NS] slot view of RLE-mode rows (plus
     the continuation stream when present) — the HOT decode: rank and
     code-at reduce over slots directly (clamp-sum / one-hot), with no
-    [B, seg] grid materialization and no scatter (a per-step scatter
-    measured 0.42M steps/s vs 10M, BENCH round 4).
+    [B, seg] grid materialization and no per-step scatter.
 
     Sub-byte scheme (marker dim 3): the code-area words (main +
     continuation, concatenated at WORD level — a slot may straddle the
@@ -387,8 +385,7 @@ def _vrle_slots_from_row(arrays: FMArrays, row: jax.Array, s: jax.Array,
     if vrle_flat_cont(arrays):
         # flat continuation store: fetch ngr whole GRANULE ROWS at the
         # segment's (granule-aligned) word offset — a [B, ngr] row
-        # gather; an element-level window gather here measured ~6x
-        # slower serving (round 5).  Non-continued lanes read offset 0
+        # gather instead of an element-level window gather.  Non-continued lanes read offset 0
         # and lanes near the end read the zero guard rows — both decode
         # to slots that start at >= seg (every true stream's lengths sum
         # to exactly seg) and contribute nothing.
@@ -613,7 +610,7 @@ def ckpt_base(arrays: FMArrays, s: jax.Array, c: jax.Array) -> jax.Array:
     any checkpoint tier (dispatch is static: on occ_ckpt.dtype).
 
     The compact/packed/vseg tiers all use the uint16-relative scheme
-    (measured same bytes as int8 interpolation at L1_GROUP=16, one
+    (the same bytes as int8 interpolation at L1_GROUP=16, one
     gather stream fewer per rank); vseg stores the relative row INSIDE
     the serving row (generic callers pay one row gather here — the hot
     paths share the row they already gathered)."""
@@ -728,9 +725,9 @@ def occ2_shared(arrays: FMArrays, cd: jax.Array, r1: jax.Array,
     """(occ(cd, r1), occ(cd, r2)) for DENSE codes, serving r2 from r1's
     already-gathered segment row whenever both bounds share a segment.
 
-    Gather ROWS are the count kernel's budget (58 ns/row flat 128-512B,
-    no duplicate-row dedupe in hardware — PERF.md round-2 design space),
-    so the win requires actually issuing fewer rows: with compact_cap > 0
+    If gather ROWS are the count kernel's budget (a hypothesis to
+    re-measure, PERF.md; there is no duplicate-row dedupe in hardware),
+    the win requires actually issuing fewer rows: with compact_cap > 0
     the differing-segment lanes are compacted into a [compact_cap]
     sub-batch on device (cumsum + scatter, no host sync) and only those
     lanes gather a second segment row; when more than compact_cap lanes
@@ -886,7 +883,7 @@ def lf_grank_step(arrays: FMArrays, r: jax.Array):
     lookups.  Returns (lf_row, is_marked, mark_rank) — the mark VALUE
     gather is deferred to one batched lookup after the walk (callers do
     mark_vals[grank]), cutting a gather stream from every loop iteration
-    (gather rows are the locate budget, PERF.md)."""
+    (gather rows are the locate budget)."""
     seg = seg_size(arrays)
     words_per_seg = seg // 32
     s = r // seg

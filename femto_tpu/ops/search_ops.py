@@ -2,7 +2,7 @@
 
 The reference runs each query as a continuation-passing state machine over
 worker threads with row-sorted leaf-query batching (server.c:713-946,
-3093-3340).  On TPU the batch dimension *is* the request batching: B queries
+3093-3340).  Here the batch dimension *is* the request batching: B queries
 advance one character per step of a `lax.scan`, every step performing fused
 batched rank lookups.  This collapses FEMTO's scheduler + RB-tree + block
 cache into dense array ops.
@@ -56,7 +56,7 @@ def backward_search_shared(arrays: FMArrays, n: int, pats: jax.Array,
     the `last` bound is served from `first`'s gathered row, and the
     remaining differing-segment lanes compact into a [compact_cap]
     sub-batch before their second gather (device-side, no host sync).
-    Measured variant for the count-kernel row budget (PERF.md)."""
+    A variant for the count-kernel row budget."""
     B, P = pats.shape
     if compact_cap is None:
         compact_cap = max(B // 2, 1)
@@ -207,9 +207,8 @@ def locate_rows_phased(arrays: FMArrays, mark_period: int, rows: jax.Array,
 
     The lockstep while_loop walks every lane for ~mark_period+1
     iterations even though the mean hit depth is ~mark_period/2 — finished
-    lanes idle (judge round-1 weak #2).  Per-iteration compaction measured
-    SLOWER (PERF.md round 2: a host sync + 3 O(B) scatters per chunk);
-    this version walks scan phases of ~(mark_period+1)/3 steps and
+    lanes idle.  Per-iteration compaction costs a host sync + 3 O(B)
+    scatters per chunk; this version walks scan phases of ~(mark_period+1)/3 steps and
     compacts ONLY between phases: 2 host syncs + 2 cheap byte-key sorts
     total, executed-lane count drops ~1.5x.  Small batches keep the plain
     while_loop (sync overhead dominates).  Returns offsets like
@@ -266,8 +265,7 @@ def locate_rows_pyramid(arrays: FMArrays, mark_period: int,
     """locate_rows with DEVICE-side capacity-halving between walk phases.
 
     The lockstep walk executes every lane for mark_period+1 steps though
-    the mean hit depth is ~half that; host-sync'd compaction measured
-    slower (PERF.md round 2).  This variant compacts ENTIRELY on device
+    the mean hit depth is ~half that.  This variant compacts ENTIRELY on device
     (one byte-key sort per phase boundary, no scalar pulls): phase 1 walks
     all B lanes past the half-life, survivors compact into a B/2 then B/4
     sub-batch, and a lax.cond cleanup phase (full width, executed only

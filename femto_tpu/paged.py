@@ -1,11 +1,11 @@
-"""Larger-than-HBM serving: host/disk-resident rows + a device row cache.
+"""Larger-than-device-memory serving: host/disk rows + a device row cache.
 
 The reference's identity is *external memory*: it served a 182 GB corpus
 from one machine's disks through mmap'd index blocks and two-level LRU
 caches (/root/reference/src/main/index.c:1222 b_fault bucket cache,
-server.c:3383,3656 block cache; doc/femto.pdf §4.1).  femto_tpu's HBM
-tiers stop at ~chip-HBM/0.9 B/char of text; this module is the TPU
-analog of the bucket cache for anything bigger:
+server.c:3383,3656 block cache; doc/femto.pdf §4.1).  femto_tpu's
+resident tiers stop at ~device-memory/0.9 B/char of text; this module is
+the device analog of the bucket cache for anything bigger:
 
   * the ROW-TIER store (`bwt` — codes + symbol list + marks + relative
     checkpoints per row, ~90% of a vseg/vrle index's bytes) stays on the
@@ -23,7 +23,7 @@ analog of the bucket cache for anything bigger:
     then dispatches the full batch.  FIFO-clock eviction.
 
 Small arrays (C, occ_l1, alpha maps, mark_vals, seg_nsym/seg_woff,
-seg_ovf, seg_cont, doc arrays) stay HBM-resident — together they are a
+seg_ovf, seg_cont, doc arrays) stay device-resident — together they are a
 few percent of the index.  Only the row tiers (vseg/vrle) are pageable:
 their one-row layout means ONE indirection pages codes, marks, and
 checkpoints at once.
@@ -40,6 +40,12 @@ import numpy as np
 
 from .alphabet import pattern_to_alpha
 from .fmindex import FMArrays, FMIndex, FMMeta
+
+
+# arrays of a flat index that never go to the device: the row store
+# (paged through the cache) and the host-side document tables
+HOST_RESIDENT = ("bwt", "doc_starts_np", "header_lens_np",
+                 "chunk_doc_offsets_np", "chunk_docs_np", "sa_direct")
 
 
 def _bucket(x: int, minimum: int = 64) -> int:
@@ -119,8 +125,7 @@ class PagedIndex:
         resident = {}
         resident_bytes = 0
         for k, v in arrs.items():
-            if k in ("bwt", "doc_starts_np", "header_lens_np",
-                     "chunk_doc_offsets_np", "chunk_docs_np", "sa_direct"):
+            if k in HOST_RESIDENT:
                 continue
             resident[k] = jnp.asarray(v)
             resident_bytes += resident[k].nbytes

@@ -1,4 +1,4 @@
-"""Record exchange over the device mesh — the ICI replacement for MPI bins.
+"""Record exchange over the device mesh — the collective replacement for MPI bins.
 
 The reference moves fixed-size big-endian records between MPI ranks through
 tile pipes feeding per-bin two-pass sorters

@@ -1,6 +1,6 @@
 """Distributed suffix-array / BWT / index construction over a device mesh.
 
-The TPU re-architecture of the reference's MPI DCX pipeline
+The mesh re-architecture of the reference's MPI DCX pipeline
 (/root/reference/src/dcx_cc/dcx.hh:4038 suffix_sort_impl, 4786 form_bwt_node,
 4930 write_index_files_node): text is sharded into equal per-device blocks
 (the "bins") and sorted by the mesh edition of the single-chip round-2
@@ -307,8 +307,7 @@ def _rep_compact_body(sa: jax.Array, st: jax.Array, *, n_pad: int, M: int,
     """Compact the globally-unresolved slots into REPLICATED [M] record
     arrays (slot, suffix position, group base): bitmap rank-select of
     the local unresolved slots (the suffix._compact_select trick —
-    O(m/32 + M); the m-row compaction scatters this replaces measured
-    ~2 s of the 3 s mesh=1 build at 128 MiB, round 5) at a cross-device
+    O(m/32 + M) instead of m-row compaction scatters) at a cross-device
     offset, then one psum merge (each lane has one contributor)."""
     from ..ops.build_ops import _mark_rank_select
 
@@ -454,12 +453,10 @@ def _rep_epilogue_body(sa: jax.Array, st: jax.Array, key0_blk: jax.Array,
                        pull: jax.Array, payload: jax.Array, W: jax.Array,
                        *, n_pad: int, M: int, T: int, per_key: int,
                        axis: str):
-    """Fused wide-path epilogue (round 5, VERDICT r4 #4): compaction,
-    the FIRST direct-extension round, and the pull-fix as ONE mesh
-    program — the three separate n-shaped dispatches this replaces were
-    the measured mesh=1 bottleneck (42.8 MiB/s at 128 MiB, PERF.md
-    round 4).  No speculation needed: the host already knows m_act (and
-    hence M) from the seed-sort pull.  The fused pull-fix is correct
+    """Fused wide-path epilogue: compaction, the FIRST direct-extension
+    round, and the pull-fix as ONE mesh program instead of three separate
+    n-shaped dispatches.  No speculation needed: the host already knows
+    m_act (and hence M) from the seed-sort pull.  The fused pull-fix is correct
     when the first round resolves everything (the common case on text);
     if survivors remain, the driver runs further extension rounds and
     re-applies the pull-fix — it refreshes pull[slot] = payload[sa[slot]]
@@ -619,9 +616,9 @@ def _jit_seed_sort(mesh, axis, nkeys, n_pad, cap):
 def _jit_prep_seed(mesh, axis, n, n_pad, per_key, bits, nkeys,
                    mark_period, ndocs, cap):
     """Fused key-prep + seed sort: ONE program, one dispatch — the
-    intermediate key operands never materialize in HBM (VERDICT r4 #4:
-    mesh pipeline overhead).  Also returns keys[0] and the payload,
-    which the extension epilogue and pull-fix consume later."""
+    intermediate key operands never materialize in device memory.  Also
+    returns keys[0] and the payload, which the extension epilogue and
+    pull-fix consume later."""
     def body(text_block, doc_starts, used, key):
         kp = _prep_body(text_block, doc_starts, used, n=n, n_pad=n_pad,
                         per_key=per_key, bits=bits, nkeys=nkeys,
@@ -889,8 +886,8 @@ def dist_suffix_array(
             # replicated-active direct-extension epilogue.  The common
             # path (one extension round resolves everything, typical on
             # text) is ONE fused dispatch: compact + extend + pull-fix,
-            # with sa/st/pull donated (VERDICT r4 #4 — the separate
-            # n-shaped dispatches were the mesh=1 bottleneck).
+            # with sa/st/pull donated instead of separate n-shaped
+            # dispatches.
             M = _bucket_anchored(m_act, n_pad)
             M0 = M
             W = span
@@ -1008,22 +1005,16 @@ def pad_text_for_mesh(text_np: np.ndarray, D: int, seg: int = DEFAULT_SEG,
 
 
 def _shard_occ_base(bwt_block, used, *, seg: int, dense: bool, axis: str):
-    """(per_seg, occ_abs, C) for this shard's rows: local MXU histogram +
+    """(per_seg, occ_abs, C) for this shard's rows: local histogram +
     cross-shard prefix base (dense=True selects the `used` columns)."""
     from ..alphabet import ALPHA_SIZE
-    from ..ops.build_ops import _hist_core
+    from ..ops.build_ops import seg_hist
 
     D = jax.lax.axis_size(axis)
     me = jax.lax.axis_index(axis)
     m = bwt_block.shape[0]
-    nseg_local = m // seg
-    CH = 512
-    nchunks = -(-nseg_local // CH)
-    pad_syms = nchunks * CH * seg - m
-    b3 = jnp.concatenate(
-        [bwt_block.astype(jnp.int32), jnp.full((pad_syms,), -1, jnp.int32)]
-    ).reshape(nchunks, CH, seg)
-    per_seg = _hist_core(b3, ALPHA_SIZE)[:nseg_local]
+    per_seg = seg_hist(
+        bwt_block.astype(jnp.int32).reshape(m // seg, seg), ALPHA_SIZE)
     if dense:
         per_seg = jnp.take(per_seg, used, axis=1)         # [nseg_local, K]
     A_out = per_seg.shape[1]
@@ -1104,8 +1095,8 @@ def _package_shard(sa_block, bwt_block, a_row_block, doc_starts, used, *,
                    n_pad: int, seg: int, ndocs: int, cap_local: int,
                    mark_geom, tier: str, K: int, axis: str):
     """Per-shard index packaging: each shard packages its own row range —
-    the TPU analog of the reference's per-bin write_index_files_node
-    (dcx.hh:4930-5290); only prefix bases and tiny tables cross the ICI.
+    the analog of the reference's per-bin write_index_files_node
+    (dcx.hh:4930-5290); only prefix bases and tiny tables cross devices.
 
     tier: "full" (uint16 symbol rows + int32 absolute checkpoints),
     "compact" (uint16 relative + sharded int32 L1 rows carrying the
@@ -1121,7 +1112,7 @@ def _package_shard(sa_block, bwt_block, a_row_block, doc_starts, used, *,
     m = sa_block.shape[0]
     nseg_local = m // seg
 
-    # --- occ checkpoints: local MXU histogram + cross-shard prefix base ---
+    # --- occ checkpoints: local histogram + cross-shard prefix base ---
     per_seg, occ_abs, C = _shard_occ_base(
         bwt_block, used, seg=seg, dense=tier != "full", axis=axis)
     A_out = per_seg.shape[1]
@@ -1148,8 +1139,8 @@ def _package_shard(sa_block, bwt_block, a_row_block, doc_starts, used, *,
                 n_seg=nseg_local, seg=seg, per_word=per_word, bits=bits,
             )
         else:
-            from ..ops.build_ops import _map_codes
-            bwt_store = _map_codes(
+            from ..ops.build_ops import map_codes
+            bwt_store = map_codes(
                 bwt_block.astype(jnp.int32), used
             ).astype(jnp.uint16).reshape(nseg_local, seg)
 
@@ -1175,16 +1166,10 @@ def _vseg_stats_shard(bwt_block, used, *, seg: int, K: int, axis: str):
 
     m = bwt_block.shape[0]
     nseg_local = m // seg
-    from ..ops.build_ops import _hist_core, _map_codes, _stats_from_hist
-    codes2d = _map_codes(bwt_block.astype(jnp.int32), used).reshape(
+    from ..ops.build_ops import _stats_from_hist, map_codes, seg_hist
+    codes2d = map_codes(bwt_block.astype(jnp.int32), used).reshape(
         nseg_local, seg)
-    CH = 512
-    nchunks = -(-nseg_local // CH)
-    pad_rows = nchunks * CH - nseg_local
-    c3 = jnp.concatenate(
-        [codes2d, jnp.full((pad_rows, seg), -1, jnp.int32)]
-    ).reshape(nchunks, CH, seg)
-    per_seg = _hist_core(c3, K)[:nseg_local]
+    per_seg = seg_hist(codes2d, K)
     syms, nsym = _stats_from_hist(per_seg, SMAX=VSEG_SMAX)
     cands = vseg_width_candidates(seg)
     ovf_counts = jnp.stack([
@@ -1201,21 +1186,14 @@ def _vrle_stats_shard(bwt_block, used, *, seg: int, K: int, axis: str):
     runs the SAME (w_main, A, C) argmin as the single-chip build
     (build_ops.vrle_plan), then _package_shard_vrle assembles rows."""
     from ..ops.build_ops import (
-        VRLE_SMAX, _hist_core, _map_codes, _stats_from_hist,
-        _vrle_slot_stats,
+        VRLE_SMAX, _stats_from_hist, _vrle_slot_stats, map_codes, seg_hist,
     )
 
     m = bwt_block.shape[0]
     nseg_local = m // seg
-    codes2d = _map_codes(bwt_block.astype(jnp.int32), used).reshape(
+    codes2d = map_codes(bwt_block.astype(jnp.int32), used).reshape(
         nseg_local, seg)
-    CH = 512
-    nchunks = -(-nseg_local // CH)
-    pad_rows = nchunks * CH - nseg_local
-    c3 = jnp.concatenate(
-        [codes2d, jnp.full((pad_rows, seg), -1, jnp.int32)]
-    ).reshape(nchunks, CH, seg)
-    per_seg = _hist_core(c3, K)[:nseg_local]
+    per_seg = seg_hist(codes2d, K)
     syms, nsym = _stats_from_hist(per_seg, SMAX=VRLE_SMAX)
     slots = _vrle_slot_stats(codes2d, syms, nsym, seg=seg, SMAX=VRLE_SMAX)
     return syms, nsym, slots
@@ -1236,7 +1214,7 @@ def _package_shard_vrle(sa_block, bwt_block, a_row_block, doc_starts, used,
     arrays stay rectangular."""
     from ..fmindex import l1_group_for
     from ..ops.build_ops import (
-        VRLE_SMAX, _map_codes, _to_u8, _to_u16, _vrle_pack_slots,
+        VRLE_SMAX, _to_u8, _to_u16, _vrle_pack_slots, map_codes,
         _vseg_pack_uniform, _vseg_rel_words, _vseg_sym_words,
         _vseg_width_for,
     )
@@ -1256,7 +1234,7 @@ def _package_shard_vrle(sa_block, bwt_block, a_row_block, doc_starts, used,
                              cap_local=cap_local, mark_geom=mark_geom,
                              axis=axis)
 
-    codes2d = _map_codes(bwt_block.astype(jnp.int32), used).reshape(
+    codes2d = map_codes(bwt_block.astype(jnp.int32), used).reshape(
         nseg_local, seg)
     wide = K > 256
     w_side, _Wside = _vseg_width_for(seg, 9 if wide else 8)
@@ -1388,8 +1366,8 @@ def _package_shard_vseg(sa_block, bwt_block, a_row_block, doc_starts, used,
 
     from ..alphabet import ALPHA_SIZE
 
-    from ..ops.build_ops import _map_codes
-    codes2d = _map_codes(bwt_block.astype(jnp.int32), used).reshape(
+    from ..ops.build_ops import map_codes
+    codes2d = map_codes(bwt_block.astype(jnp.int32), used).reshape(
         nseg_local, seg)
     wide = K > 256
     w_side, _Wside = _vseg_width_for(seg, 9 if wide else 8)

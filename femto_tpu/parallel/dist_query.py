@@ -1,11 +1,11 @@
 """Sharded query execution: index rows distributed over the mesh.
 
 The reference shards its index into blocks and routes leaf queries to block
-owners (SURVEY.md §5.7, index.h:195-197 HDR_BSEARCH_BLOCK_ROWS); the TPU
+owners (SURVEY.md §5.7, index.h:195-197 HDR_BSEARCH_BLOCK_ROWS); the mesh
 analog shards the segment dimension of every row-indexed array and answers
 each batched rank query cooperatively: the shard owning a row computes its
 contribution, everyone else contributes zero, and one psum per step
-broadcasts the result — queries ride ICI instead of a scheduler.
+broadcasts the result — queries ride collectives instead of a scheduler.
 
 All functions here run INSIDE shard_map; `sharded_backward_search` wraps the
 jit + shard_map plumbing.

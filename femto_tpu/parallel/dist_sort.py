@@ -1,6 +1,6 @@
 """Distributed multi-key sample sort over a 1-D device mesh.
 
-The TPU-native counterpart of the reference's two-pass distribution Sorter +
+The mesh counterpart of the reference's two-pass distribution Sorter +
 sample splitters feeding MPI bins (/root/reference/src/utils_cc/sort.hh:64-620,
 distributor_node.hh:50-683): pass 1 = local sort + splitter bucketing +
 all_to_all exchange; pass 2 = local merge sort + exact rebalance to equal
@@ -74,9 +74,8 @@ def dist_sort(
 
     if D == 1:
         # a 1-device mesh degenerates to ONE local sort — skip the
-        # splitter/exchange/rebalance machinery entirely (its padded
-        # buffers cost ~90x at D=1; axis_size is static so this branch
-        # compiles away)
+        # splitter/exchange/rebalance machinery and its padded buffers
+        # entirely; axis_size is static so this branch compiles away)
         out = list(jax.lax.sort(tuple(cols), num_keys=nk))
         return out[:nk], out[nk:], jnp.int32(0)
 

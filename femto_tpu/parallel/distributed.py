@@ -2,15 +2,17 @@
 
 The reference scales construction across machines with MPI ranks
 (/root/reference/src/mpi/mpi_utils.hh:148-218 MPI_handler init/finalize;
-femto_index runs under mpirun).  The TPU equivalent is jax.distributed:
-every process runs the SAME program over a global mesh; the shard_map
-collectives that carry the build ride ICI within a host and DCN across
-hosts, with no code changes to the build itself.
+femto_index runs under mpirun).  The equivalent here is jax.distributed:
+every process runs the SAME program over a global mesh, and the shard_map
+collectives that carry the build go through NCCL, with no code changes to
+the build itself.  On one host, one process drives all of its cards (four
+H100s over NVLink) and needs none of this module: make_mesh(4) is enough.
 
-Typical multi-host launch (one process per host):
+Typical multi-host launch (one process per host; nothing tells JAX of the
+cluster, so the coordinator is named explicitly):
 
     from femto_tpu.parallel import distributed as ftd
-    ftd.initialize()                 # env-driven (TPU pods) or explicit
+    ftd.initialize("host0:<port>", num_processes=2, process_id=0)
     mesh = ftd.global_mesh()
     index = build_index_sharded(prepared, mesh)
 
@@ -30,8 +32,9 @@ def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None,
                cpu_collectives: Optional[str] = None) -> None:
-    """Initialize jax.distributed.  With no arguments, TPU pod environments
-    auto-discover; pass explicit values for manual launches.
+    """Initialize jax.distributed.  Pass the coordinator address, the
+    process count and this process's id; without them JAX can only
+    auto-discover clusters whose environment describes them.
 
     cpu_collectives: set to "gloo" for multi-process CPU runs (tests)."""
     import jax

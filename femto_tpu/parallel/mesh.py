@@ -2,7 +2,9 @@
 
 The reference scales over MPI ranks owning record "bins"
 (/root/reference/src/dcx_cc/dcx.hh:884-935, mpi/mpi_utils.hh:148-295).  Here
-one 1-D jax mesh axis plays the rank role; collectives ride ICI.
+one 1-D jax mesh axis plays the rank role.  The cards of one host are
+joined all to all (NVLink on an H100 host), so the mesh follows the
+algorithm alone; XLA hands the collectives to NCCL.
 """
 
 from __future__ import annotations

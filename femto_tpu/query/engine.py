@@ -45,8 +45,7 @@ def term_ranges(index: FMIndex, term: QTerm,
     """Row ranges (first, last, cost) matching a term.
 
     The device lockstep frontier (regexp_device.py) runs the whole search
-    in one dispatch (measured ~2x the host engine steady-state on TPU) and
-    falls back to the host per-layer engine on capacity overflow; pass
+    in one dispatch and falls back to the host per-layer engine on capacity overflow; pass
     device_frontier=False to force the host engine (e.g. to avoid the
     one-time per-NFA-shape compile)."""
     from .planning import matches_empty, streamline
@@ -117,9 +116,8 @@ def find_strings(index: FMIndex, query: str,
 
 
 # Streaming locate window: offset-bearing terms with no cap walk their row
-# ranges in windows of this many rows (bounds device memory per dispatch;
-# ~1 s per window at the measured pyramid-walk rate, instant on the direct
-# tier), accumulating the FULL doc/offset set — the reference's semantics
+# ranges in windows of this many rows (bounds device memory per dispatch),
+# accumulating the FULL doc/offset set — the reference's semantics
 # (full result sets, results.h:115-121) with bounded peak footprint.
 LOCATE_WINDOW = 1 << 20
 

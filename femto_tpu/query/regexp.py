@@ -7,7 +7,7 @@ characters, batch-requests Occ for every candidate character, forks new
 ranges, and merges state vectors on range collision; final states emit
 match ranges.
 
-TPU version: the frontier is expanded one *character layer* at a time — all
+Device version: the frontier is expanded one *character layer* at a time — all
 (entry, char) forks of the whole frontier become ONE batched backward-step
 on device (the parts[ALPHA_SIZE] batching of server.h:563, vectorized for
 real).  Host keeps the small NFA state vectors and the dedup map.

@@ -139,7 +139,10 @@ def _frontier_loop(step_pair, src, dst, mask, accept, costs0, cfg: _Static):
         (first, last, costs, live, res_first, res_last, res_cost, res_len,
          res_count, overflow, depth) = state
 
-        # 1. reachable chars per entry: live_src[F,T] @ mask[T,A]
+        # 1. reachable chars per entry: live_src[F,T] @ mask[T,A].  The
+        # operands are 0/1, exact in TF32 and bf16, and the float32 sums
+        # count transitions (far below 2^24), so the product is exact on
+        # any matmul path; only > 0 is read.
         live_src = (jnp.take(costs, src, axis=1) < cfg.cost_bound) & live[:, None]
         reach = jnp.einsum(
             "ft,ta->fa", live_src.astype(jnp.float32),

@@ -53,11 +53,9 @@ def _count_jit(arrays, n, pats, row0=0):
 
 def _locate_jit(arrays, n, mark_period, rows):
     """Locate dispatch.  Large batches default to the DEVICE-compaction
-    pyramid walk (capacity-halving phases, zero host syncs — measured
-    1.5x the lockstep loop on the real chip, PERF.md round 3); small
+    pyramid walk (capacity-halving phases, zero host syncs); small
     batches keep the single lockstep loop.  The host-driven phased walk
-    stays opt-in via FEMTO_TPU_PHASED_LOCATE=1 (it LOSES on
-    remote-dispatch transports: 0.25M vs 0.67M rows/s, round 2)."""
+    stays opt-in via FEMTO_TPU_PHASED_LOCATE=1."""
     import os
 
     if os.environ.get("FEMTO_TPU_PHASED_LOCATE"):

@@ -3,9 +3,9 @@
 The reference server is N worker pthreads with per-thread RB-trees of leaf
 queries, work stealing, and row-sorted sweeps (/root/reference/src/main/
 server.c:3093-3604) — request batching is its signature throughput idea.
-On TPU the batch dimension IS the request batching: a collector thread
-drains the pending-request queue every few milliseconds and executes ONE
-batched backward-search for all of them.
+On the accelerator the batch dimension IS the request batching: a
+collector thread drains the pending-request queue every few milliseconds
+and executes ONE batched backward-search for all of them.
 
 The text protocol matches femto.h:86-139:
   find_strings PATTERN
@@ -363,19 +363,16 @@ class IndexPool:
             self._order.clear()
 
 
-def serve(index_path: str, host: str = "127.0.0.1", port: int = 7733,
-          num_threads: int = 4):
-    """HTTP front end (mod_femto style: POST body = one protocol line).
+def make_handler(default_server: FemtoServer, pool: IndexPool,
+                 base_dir: str, index_path: str = ""):
+    """HTTP request handler class (mod_femto style: POST body = one
+    protocol line) over an in-process FemtoServer.
 
-    POST /              -> query the default index (index_path)
-    POST /femto/NAME/   -> query sibling index NAME in the same directory
+    POST /              -> query default_server
+    POST /femto/NAME/   -> query sibling index NAME in base_dir (via pool)
     GET  /stats         -> metrics snapshot
     """
     import os
-
-    pool = IndexPool()
-    default_server = pool.get(index_path)
-    base_dir = os.path.dirname(os.path.abspath(index_path))
 
     class Handler(BaseHTTPRequestHandler):
         def do_POST(self):
@@ -438,7 +435,20 @@ def serve(index_path: str, host: str = "127.0.0.1", port: int = 7733,
         def log_message(self, *a):
             pass
 
-    httpd = ThreadingHTTPServer((host, port), Handler)
+    return Handler
+
+
+def serve(index_path: str, host: str = "127.0.0.1", port: int = 7733,
+          num_threads: int = 4):
+    """HTTP front end over the index at index_path (see make_handler)."""
+    import os
+
+    pool = IndexPool()
+    default_server = pool.get(index_path)
+    base_dir = os.path.dirname(os.path.abspath(index_path))
+    httpd = ThreadingHTTPServer(
+        (host, port),
+        make_handler(default_server, pool, base_dir, index_path))
     print(f"femto-tpu server on http://{host}:{port}/ "
           f"(index: {index_path}, n={default_server.index.meta.n})")
     try:

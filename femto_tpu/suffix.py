@@ -3,24 +3,22 @@
 The reference builds suffix arrays with external-memory difference-cover
 (DCX) sorting over MPI bins (/root/reference/src/dcx_cc/dcx.hh:4038) or
 in-memory two-stage sorters (dcx_inmem.cc, two_stage.cc).  Those designs are
-disk/NIC-bound and branch-heavy; on TPU the right primitive is the global
-sort XLA emits for `lax.sort`.  Measured op costs (PERF.md round 2: sort
-probe) shape the design:
+disk/NIC-bound and branch-heavy; on an accelerator the right primitive is
+the global sort XLA emits for `lax.sort`.  The design follows from it:
 
-* a 3-key global sort costs ~91 ms at n=16.8M and extra payload operands
-  are FREE, while num_keys=4/5 sorts are ~1.5x slower — so the initial
-  sort uses exactly 3 int32 keys, packed as densely as the corpus alphabet
-  allows (dense-remapped codes: 4-10 symbols per 30-bit key instead of 3);
-* n-row random gathers/scatters cost 120-190 ms — so the BWT pull rides
-  the sort as a payload operand, compactions are stable byte-key sorts
-  (~55 ms), and the common path never materializes the inverse
-  permutation (ISA) at all;
-* the residual unresolved groups (~1% of n on real text after a 12-18
-  symbol initial sort) are resolved by DIRECT KEY EXTENSION: gather the
-  next T packed words of each tied suffix and re-sort the tiny active
-  set — no rank array, no O(n) pass.  Pathological inputs (long repeats)
-  fall back to prefix doubling (Manber-Myers) with segment filtering,
-  which is O(log n) rounds and needs the ISA (built lazily, one scatter).
+* the initial sort uses 2-3 int32 keys, packed as densely as the corpus
+  alphabet allows (dense-remapped codes: 4-10 symbols per 30-bit key
+  instead of 3), and extra payload operands ride the sort;
+* n-row random gathers/scatters are avoided: the BWT pull rides the sort
+  as a payload operand, compactions are rank-selects over bitmaps, and
+  the common path never materializes the inverse permutation (ISA);
+* the residual unresolved groups (a small share of n on real text after
+  a 12-18 symbol initial sort) are resolved by DIRECT KEY EXTENSION:
+  gather the next T packed words of each tied suffix and re-sort the tiny
+  active set — no rank array, no O(n) pass.  Pathological inputs (long
+  repeats) fall back to prefix doubling (Manber-Myers) with segment
+  filtering, which is O(log n) rounds and needs the ISA (built lazily,
+  one scatter).
 
 Ranks, where used (fallback paths), follow the "group base slot"
 convention (the first SA slot of the group), so refined subgroup ranks are
@@ -45,48 +43,33 @@ _I32_MAX = np.int32(0x7FFFFFFF)
 _EXT_T = 4            # packed words gathered per direct-extension round
 _EXT_MAX_ROUNDS = 6   # then fall back to doubling
 _KEY_BITS = 30        # payload bits per int32 sort key (sign bit unused)
-_NKEYS = 3            # measured: 3-key sorts are the TPU sweet spot
+_NKEYS = 3            # seed-sort keys when fewer than 10 symbols fit two
 
 
 def _bucket_anchored(m: int, n: int) -> int:
     """Smallest n/4^j >= m (floored at _MIN_BUCKET): at most ~log4(n) work
     shapes ever compile per corpus size, vs ~log2(n) for pow2 buckets —
-    remote compiles dominate cold builds, so fewer shapes wins."""
+    compiles are a large share of a cold build, so fewer shapes wins."""
     M = 1 << max((n - 1).bit_length(), _MIN_BUCKET.bit_length() - 1)
     while M // 4 >= m and M // 4 >= _MIN_BUCKET:
         M //= 4
     return min(M, n)
 
 
-# ---------------------------------------------------------------------------
-# Alphabet histogram (MXU one-hot contraction; same trick as the occ
-# histogram in ops/build_ops._hist_core) — decides the dense pack rate.
-# ---------------------------------------------------------------------------
+_HIST_ROW = 4096  # symbols per partial histogram row in _alpha_hist
 
 
 @functools.partial(jax.jit, static_argnames=("n",))
 def _alpha_hist(text, *, n):
-    """int32[512] symbol counts of `text` (codes < 512)."""
-    S = 512
-    CH = 512
-    nch = -(-n // (CH * S))
-    b = jnp.full((nch * CH * S,), -1, jnp.int32)
-    b = jax.lax.dynamic_update_slice(b, text.astype(jnp.int32), (0,))
-    b3 = b.reshape(nch, CH, S)
+    """int32[512] symbol counts of `text` (codes < 512) — decides the
+    dense pack rate.  Per-row histograms summed: the scatter-add spreads
+    over n/_HIST_ROW rows instead of contending on 512 counters."""
+    from .ops.build_ops import seg_hist
 
-    def chunk(bc):
-        hi = bc >> 5
-        lo = bc & 31
-        A = (hi[:, :, None] == jnp.arange(16)[None, None, :]).astype(
-            jnp.bfloat16)
-        Bm = (lo[:, :, None] == jnp.arange(32)[None, None, :]).astype(
-            jnp.bfloat16)
-        ps = jnp.einsum(
-            "sri,srj->sij", A, Bm, preferred_element_type=jnp.float32
-        )
-        return ps.reshape(CH, 512).astype(jnp.int32).sum(axis=0)
-
-    return jax.lax.map(chunk, b3).sum(axis=0)
+    rows = -(-n // _HIST_ROW)
+    t = jnp.full((rows * _HIST_ROW,), -1, jnp.int32)
+    t = jax.lax.dynamic_update_slice(t, text.astype(jnp.int32), (0,))
+    return seg_hist(t.reshape(rows, _HIST_ROW), 512).sum(axis=0)
 
 
 # ---------------------------------------------------------------------------
@@ -109,8 +92,7 @@ def _keys_stage(codes, *, n, per_key, bits, nkeys, n_real=None):
     below every real key — so the initial sort resolves the entire pad
     run instantly instead of feeding a giant tie into the doubling
     fallback (the 0^k suffixes only differ by length, which doubling
-    needs ~log2(pad) full rounds to see: a padded tail chunk of the
-    >2^31 flagship build measured 116 s vs 1.4 s — PERF.md round 3).
+    needs ~log2(pad) full rounds to see).
     The same encoding answers extension fetches that cross into the pad,
     exactly like the mesh sort (parallel/dist_build._seed_keys)."""
     idx = jnp.arange(n, dtype=jnp.int32)
@@ -166,9 +148,7 @@ def _sort3(*args, n):
 @functools.partial(jax.jit, static_argnames=("n", "M"))
 def _compact_select(st, *, n, M):
     """Ascending unresolved slots (n-padded, capacity M) via bitmap
-    rank-select — O(n/32 + M) instead of the n-row byte-key sort it
-    replaces (which cost ~0.35 s at n=100M, dominating the extension
-    epilogue; PERF.md round 2)."""
+    rank-select — O(n/32 + M) instead of an n-row byte-key sort."""
     from .ops.build_ops import _mark_rank_select
 
     nxt = jnp.concatenate([st[1:], jnp.ones((1,), bool)])
@@ -250,7 +230,7 @@ _extend_round = functools.partial(
 # before the unresolved count m is known, so the initial-sort arrays must
 # survive in case m exceeds the speculative capacity and the round's
 # output has to be discarded (the copies are one bandwidth pass; the
-# round-trip this saves is ~25 ms on the remote transport, PERF.md).
+# saving is one host round-trip).
 _extend_round_spec = functools.partial(
     jax.jit, static_argnames=("n", "M", "T", "per_key"),
 )(_extend_round_impl)
@@ -388,7 +368,7 @@ def suffix_array(text: jax.Array, payload: jax.Array | None = None,
     alpha: optional host array of the symbols that occur in `text`
     (sorted ascending; a superset is fine for correctness but weakens the
     key pack rate).  When given, the on-device alphabet histogram AND its
-    host round-trip (~25 ms on the remote transport) are skipped.
+    host round-trip are skipped.
 
     Host round-trips are the off-device cost of the driver: with `alpha`
     given, the common path costs exactly ONE scalar pull — the first
@@ -427,9 +407,9 @@ def suffix_array(text: jax.Array, payload: jax.Array | None = None,
         codes = _remap_stage(text, jnp.asarray(used_np), n=n, K=K)
     else:
         codes = text.astype(jnp.int32)
-    # 2 keys when the pack rate covers >= 10 symbols (measured 22% cheaper
-    # than 3-key; the slightly larger residual goes to the extension
-    # epilogue), else 3
+    # 2 keys when the pack rate covers >= 10 symbols (one key operand
+    # fewer in the big sort; the slightly larger residual goes to the
+    # extension epilogue), else 3
     nkeys = 2 if 2 * per_key >= 10 else _NKEYS
     keys = _keys_stage(codes, n=n, per_key=per_key, bits=bits, nkeys=nkeys,
                        n_real=n_real)

@@ -3,7 +3,7 @@
 // The reference feeds its indexer through C input plugins implementing a
 // two-pass document reader ABI (its_use_arguments/get_doc_info/
 // switch_passes/get_doc, /root/reference/src/dcx_cc/index_tool_support.h:
-// 20-120) with multithreaded staging.  This library is the TPU framework's
+// 20-120) with multithreaded staging.  This library is femto_tpu's
 // equivalent: it walks files, reads them with a thread pool, and writes the
 // prepared uint16 alphabet stream (byte+CHARACTER_OFFSET, SEOF terminator
 // per document) plus the int64 doc-start prefix array directly into

@@ -6,7 +6,7 @@
 # jaxlib's backend_compile_and_load (observed reproducibly ~70-85 test
 # files into a serialized whole-suite run; every file passes in its own
 # process).  This is process longevity in the XLA CPU compiler, not a
-# femto_tpu logic bug — see PERF.md "Round 5: one-command suite".
+# femto_tpu logic bug.
 # The mitigation is the same one the reference uses for its MPI tests
 # (one mpirun per test binary, SURVEY.md §4): one process per test file.
 #

@@ -1,8 +1,8 @@
-"""Corpora beyond one index's 2^31-symbol ceiling (VERDICT round-1 item 6).
+"""Corpora beyond one index's 2^31-symbol ceiling.
 
 Mechanism tests run in CI with an artificially small chunk limit; the real
 >2^31 build is gated behind FEMTO_TPU_BIG_TESTS=1 (tens of minutes on the
-CPU backend) — its measured result is recorded in PERF.md.
+CPU backend).
 """
 
 import os

@@ -1,7 +1,7 @@
-"""Larger-than-HBM paged serving (paged.PagedIndex): a row-tier index
+"""Larger-than-device-memory paged serving (paged.PagedIndex): a row-tier index
 several times larger than the device budget must serve EXACT
 count/locate/regex through the host-resident row store + device row
-cache — the TPU analog of the reference's bucket/block LRU caches over
+cache — the device analog of the reference's bucket/block LRU caches over
 mmap'd blocks (index.c:1222, server.c:3383; femto.pdf §4.1)."""
 
 import os

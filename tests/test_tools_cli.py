@@ -79,7 +79,7 @@ def test_cli_end_to_end(tmp_path):
     (docdir / "a.txt").write_bytes(b"the quick brown fox")
     (docdir / "b.txt").write_bytes(b"lazy dogs sleep quickly")
     idx = str(tmp_path / "idx")
-    env = dict(os.environ, FEMTO_TPU_PLATFORM="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
 
     def run(*args):
         r = subprocess.run(
